@@ -1,4 +1,4 @@
-"""Headline benchmark: n=32 dense exact permanent on real TPU.
+"""Headline benchmark: n=32 dense exact permanent on one GPU.
 
 Prints ONE JSON line {"metric", "value", "unit", "vs_baseline"}.
 
@@ -7,7 +7,7 @@ BASELINE.json north star is "exact n=32 dense permanent faster than a
 2-GPU CUDA baseline", reported as Gray-code iters/s.  The v1 kernel does
 2^31 iterations of ~2n flops with a 2048x256-thread grid; on two
 V100-class GPUs a well-tuned double-calc run is ~0.5 s => ~4.3e9 iters/s
-TOTAL.  vs_baseline > 1 means ONE TPU chip beats that two-GPU estimate at
+TOTAL.  vs_baseline > 1 means ONE device beats that two-GPU estimate at
 reference-parity accuracy (df64 compensated arithmetic ~ the reference's
 double-over-float calc; checked against our independent native C++ double
 engine).  The f32 rate (calc-half-precision parity, flags.h -h) is

@@ -1,13 +1,13 @@
-"""superman_tpu — TPU-native matrix permanent engine.
+"""superman_tpu — matrix permanent engine for NVIDIA GPUs, in JAX.
 
 A ground-up JAX/XLA/Pallas re-design of the capability set of
 kamerkaya/SUPerman (CUDA/C++): exact permanents via the Nijenhuis–Wilf
 Gray-code Ryser formula, sparse SpaRyser/SkipPer variants, Monte-Carlo
 estimators (Rasmussen, Sinkhorn-scaling-guided), matrix orderings,
 exact-preserving compressions, Sinkhorn preconditioning, grid-graph
-perfect-matching counting, CLI + Python/C APIs — executed on TPU via
-Pallas kernels sharded over a `jax.sharding.Mesh`, with a native C++
-OpenMP engine for the host CPU path.
+perfect-matching counting, CLI + Python/C APIs — executed on the GPU by
+a Pallas (Triton) walk kernel sharded over a `jax.sharding.Mesh`, with a
+native C++ OpenMP engine for the host CPU path.
 """
 
 import jax as _jax
@@ -18,16 +18,22 @@ import jax as _jax
 _jax.config.update("jax_enable_x64", True)
 
 # persistent XLA compilation cache: the engine's kernel shapes repeat
-# across runs, so paying the ~30 s TPU compile once per machine (not per
-# process) matters for CLI workflows.  Opt out with SUPERMAN_NO_CC=1.
+# across runs, so a compile is paid once per checkout, not per process.
+# JAX_COMPILATION_CACHE_DIR wins (JAX reads it itself); otherwise the
+# cache lives in .jax_cache/ beside the package.  Opt out with
+# SUPERMAN_NO_CC=1.
 import os as _os
 
+
+def _cache_dir() -> str:
+    return _os.environ.get("JAX_COMPILATION_CACHE_DIR") or _os.path.join(
+        _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))),
+        ".jax_cache")
+
+
 if not _os.environ.get("SUPERMAN_NO_CC"):
-    _cc = _os.environ.get("JAX_COMPILATION_CACHE_DIR",
-                          _os.path.expanduser("~/.cache/superman_tpu/xla"))
     try:
-        _os.makedirs(_cc, exist_ok=True)
-        _jax.config.update("jax_compilation_cache_dir", _cc)
+        _jax.config.update("jax_compilation_cache_dir", _cache_dir())
         _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
     except (OSError, AttributeError):
         pass

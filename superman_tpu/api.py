@@ -142,10 +142,12 @@ def permanent(matrix: Union[np.ndarray, DenseMatrix, str, None] = None,
     unknown = set(overrides) - flag_fields
     if unknown:
         raise TypeError(f"unknown flags: {sorted(unknown)}")
+    from .backend import backend
     flags = Flags(**overrides)
     dm = _as_dense(matrix, flags)
     from .drivers.runner import run
     from .utils import trace
+    where = backend()
     with trace.profile("superman_tpu.permanent"):
         with trace.timer(f"permanent[{flags.algo_name or flags.perman_algo}]",
                          level=2):
@@ -153,16 +155,22 @@ def permanent(matrix: Union[np.ndarray, DenseMatrix, str, None] = None,
     spans = trace.drain_spans()
     if spans:
         res.meta.setdefault("spans", spans)
+    res.meta["backend"] = where
     if getattr(flags, "_rect", None):
         res = _unpad_rect_result(res, flags)
     return res
 
 
 def permanent_batch(mats, **overrides):
-    """Exact permanents of many matrices; same-order small matrices are
-    vmapped into one device program (see ops/batch.py)."""
+    """Exact permanents of many matrices; same-order matrices share one
+    device program (see ops/batch.py)."""
+    from .backend import backend
     from .ops.batch import permanent_batch as _pb
-    return _pb(mats, **overrides)
+    where = backend()
+    results = _pb(mats, **overrides)
+    for res in results:
+        res.meta["backend"] = where
+    return results
 
 
 def grid_permanent(m: int, n: int, **overrides) -> Result:

@@ -74,7 +74,7 @@ def perman_dense_chunks(a_scaled: np.ndarray, chunk_ids: np.ndarray,
                         r: int, threads: int) -> float:
     """Raw partial sum over aligned Gray chunks (hybrid-scheduler CPU side).
 
-    a_scaled must be the SAME row-scaled matrix the TPU kernel runs on; the
+    a_scaled must be the SAME row-scaled matrix the device kernel runs on; the
     returned value carries no final sign factor (see perman_cpu.cpp).
     """
     lib = load()

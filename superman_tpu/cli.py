@@ -24,7 +24,7 @@ from .core.flags import Flags
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="perman", add_help=False,
-        description="TPU-native matrix permanent calculator "
+        description="GPU matrix permanent calculator "
                     "(superman_tpu)")
     p.add_argument("--help", action="help")
     p.add_argument("-f", "--file", type=str, default=None)
@@ -34,7 +34,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-s", "--sparse", action="store_true")
     p.add_argument("-b", "--binary", action="store_true")
     p.add_argument("-g", "--gpu", action="store_true",
-                   help="run on the accelerator (TPU)")
+                   help="run on the accelerator (GPU)")
     p.add_argument("-c", "--cpu", action="store_true")
     p.add_argument("-d", "--device", type=int, default=2,
                    help="number of devices for multi-device algorithms")

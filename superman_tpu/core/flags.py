@@ -2,7 +2,7 @@
 
 Parity: ``struct flags`` (reference revised_perman/flags.h:48-143) — every
 field of the reference's config struct has an equivalent here, plus the
-TPU-native knobs (mesh shape, calc dtype, chunk log2) that replace the CUDA
+engine knobs (mesh shape, calc dtype, chunk log2) that replace the CUDA
 launch-geometry fields (grid_dim/block_dim/device_id).
 """
 
@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 
 
 # calc dtypes (the reference's calculation precision knobs -h/-q map to
-# half/quad; on TPU the ladder is f32 < df64 < f64; "quad" maps to the
+# half/quad; on the accelerator the ladder is f32 < df64 < f64; "quad" maps to the
 # CPU-native long-double path in the native engine).
 CALC_DTYPES = ("f32", "f32k", "df64", "tf96", "f64", "quad")
 
@@ -22,7 +22,7 @@ CALC_DTYPES = ("f32", "f32k", "df64", "tf96", "f64", "quad")
 class Flags:
     # ---- device / algorithm selection (flags.h:49-66) ----
     cpu: bool = False           # -c : run on host CPU (native engine / XLA-CPU)
-    gpu: bool = True            # -g : reference's GPU == our TPU accelerator path
+    gpu: bool = True            # -g : the accelerator path
     dense: bool = True
     sparse: bool = False        # -s
     exact: bool = True
@@ -41,7 +41,7 @@ class Flags:
     calculation_quad_precision: bool = False  # -q : calc in quad (CPU only)
     storage_half_precision: bool = False      # -w : store matrix in f32
     storage_quad_precision: bool = False      # -v
-    #: TPU-native calc dtype; None -> derive from the booleans above
+    #: calc dtype; None -> derive from the booleans above
     calc: Optional[str] = None
 
     # ---- approximation parameters (flags.h:80-89) ----
@@ -65,7 +65,7 @@ class Flags:
     rep: int = 1                   # -k : repetitions
     grid_multip: int = 1           # -e : grid-dim multiplier (launch tuning)
 
-    # ---- TPU-native knobs (no reference equivalent) ----
+    # ---- engine knobs (no reference equivalent) ----
     #: log2 of the Gray-code chunk size; each kernel lane walks one chunk of
     #: 2**chunk_log2 consecutive subset indices. None -> auto from n.
     chunk_log2: Optional[int] = None
@@ -73,13 +73,13 @@ class Flags:
     lanes: int = 1024
     #: mesh axis sizes, e.g. (8,) for an 8-chip ring; None -> all local devices
     mesh_shape: Optional[Tuple[int, ...]] = None
-    #: chunk-level dead-range pruning for sparse matrices (TPU SkipPer)
+    #: chunk-level dead-range pruning for sparse matrices (SkipPer)
     skip_pruning: bool = True
     #: Dulmage-Mendelsohn zero-structure pruning before orderings
     #: (sparyser CLI `dm` toggle): zero entries outside every perfect
     #: matching; detects per(A) = 0 structurally
     dm_prune: bool = False
-    #: dynamic chunked TPU+CPU scheduling (reference multigpucpu_chunks,
+    #: dynamic chunked device+CPU scheduling (reference multigpucpu_chunks,
     #: algo ids 6/17); the CPU helper joins when `cpu` is also set
     hybrid: bool = False
     #: journal finished work units here; a restarted run resumes from it
@@ -126,13 +126,13 @@ class Flags:
             return "quad"
         if self.calculation_half_precision:
             return "f32"
-        # reference default is double calc; on TPU the honest equivalent is
-        # the compensated double-float path
+        # reference default is double calc; on the accelerator the walk
+        # kernel's equivalent is the compensated double-float path
         return "f64" if self.resolved_device() == "cpu" else "df64"
 
     def resolved_device(self) -> str:
         # cpu AND gpu together = hybrid (both worker kinds participate)
-        return "cpu" if (self.cpu and not self.gpu) else "tpu"
+        return "cpu" if (self.cpu and not self.gpu) else "device"
 
 
 # Named (non-numeric) algorithms the engine accepts directly.
@@ -149,10 +149,10 @@ def id_behavior(perman_algo, sparse: bool, approximation: bool) -> dict:
     The reference interprets ``-p`` ids IN CONTEXT of (sparse, approx):
     v1 dispatch main.cu:20-248, v2 dispatch revised_perman/main.cpp:98-762.
     All memory-placement variants of one algorithm collapse onto the one
-    TPU engine; what remains of an id is three booleans:
+    device engine; what remains of an id is three booleans:
 
       sparse — run the pruned (SkipPer-equivalent) path
-      hybrid — dynamic chunked TPU+CPU scheduling (multigpucpu_chunks)
+      hybrid — dynamic chunked device+CPU scheduling (multigpucpu_chunks)
       multi  — shard over a device mesh (multigpu)
 
     Exact, dense context (v1 main.cu:34-76 / v2 main.cpp:288-398):

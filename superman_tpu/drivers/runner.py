@@ -49,10 +49,9 @@ def run(dense: DenseMatrix, flags: Flags) -> Result:
         from .scale_driver import scale_and_calculate
         res = scale_and_calculate(dense, flags)
         # the scale driver reorganizes magnitudes just like compression
-        # (and may recurse into it) — same sanity net (measured escape,
-        # round-3 session: ex5_rs.mtx scaling off by 8e38 while every
-        # other config agreed; lands in SUITE_REPORT_REAL.jsonl with the
-        # round-4 hardware recapture)
+        # (and may recurse into it) — same sanity net (measured escape:
+        # ex5_rs.mtx scaling off by 8e38 while every other config
+        # agreed)
         return _compression_sanity(dense, flags, res)
     if flags.compression:
         from .compress_driver import compress_singleton_and_then_recurse
@@ -104,7 +103,7 @@ def _compression_sanity(dense: DenseMatrix, flags: Flags,
     # amplitude scale, which is where per(|A|) sits too (measured:
     # d_ss.mtx, compression off by 4.3e11 yet only 38 bits above |per| —
     # under the 60-bit alarm; pinned by test_d_ss_compression_rescued_by
-    # _exact and re-recorded in SUITE_REPORT_REAL.jsonl once captured).
+    # _exact).
     if a.shape[0] <= 100 and double_class:
         from ..bindings.native import native_available
         from ..ops.exact import (_float_of_fraction, exact_cost_estimate,
@@ -220,7 +219,7 @@ def run_algo(dense: DenseMatrix, flags: Flags) -> Result:
         flags.algo_name = res.algo_name
         return res
 
-    # dead-chunk pruning (TPU SkipPer) happens inside ryser_exact, which
+    # dead-chunk pruning (SkipPer) happens inside ryser_exact, which
     # owns the chunk plan
     from ..ops.ryser import ryser_exact
     import contextlib
@@ -431,7 +430,7 @@ def _run_auto(dm: DenseMatrix, flags: Flags, mesh) -> Result:
         """(seconds, feasible) of the exact CRT engine for this matrix —
         the ladder's last rung AND the price-of-truth attached to every
         flagged result (round-4 verdict missing #3 / advisor #3)."""
-        from ..ops.exact import exact_cost_estimate, _tpu_backend
+        from ..ops.exact import exact_cost_estimate
         from ..bindings.native import native_available
         budget = float(flags.auto_exact_budget_s)
         try:
@@ -439,7 +438,7 @@ def _run_auto(dm: DenseMatrix, flags: Flags, mesh) -> Result:
         except Exception:
             secs, core_n = float("inf"), 0
         feasible = secs < budget and (
-            core_n <= 16 or native_available() or _tpu_backend())
+            core_n <= 16 or native_available())
         return secs, feasible
 
     def _run_exact(est_tf96_err):

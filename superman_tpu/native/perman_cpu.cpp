@@ -1,11 +1,11 @@
 // perman_cpu.cpp — native OpenMP CPU engine for superman_tpu.
 //
-// Host-side counterpart of the TPU Pallas engine, covering the reference's
+// Host-side counterpart of the device walk kernel, covering the reference's
 // CPU algorithm menu (algo.h: parallel_perman64, parallel_perman64_sparse,
 // parallel_skip_perman64_w[_balanced], rasmussen, approximation_perman64)
 // and the libConnect.so C facade (interface_connector.c).  The
 // implementation is our own: the Gray-code walk uses the same
-// aligned-chunk decomposition as the TPU kernel (any chunk starts cold
+// aligned-chunk decomposition as the device kernel (any chunk starts cold
 // from gray(base)), work is distributed with a std::atomic chunk counter
 // (replacing OpenMP critical sections), and estimator RNG is a per-thread
 // PCG stream rather than rand().
@@ -189,7 +189,7 @@ double sup_perman_dense(const double* a, int n, int threads, int calc_quad) {
 
 // Raw partial sum over an explicit list of aligned Gray chunks of size
 // 2**r, WITHOUT the final (4*(n&1)-2) sign factor — the hybrid scheduler
-// (parallel/scheduler.py) combines these with the TPU kernel's per-chunk
+// (parallel/scheduler.py) combines these with the device kernel's per-chunk
 // partials, which carry the same convention.  Parity: the CPU worker side
 // of the reference's gpu_perman64_*_multigpucpu_chunks
 // (gpu_exact_dense.cu:776-896), with the OpenMP-critical chunk counter
@@ -517,8 +517,8 @@ void sup_perman_mod_batch(const uint64_t* mats, int n, const uint64_t* ps,
 // ---------------------------------------------- AVX-512 IFMA fast path
 //
 // 8-lane Montgomery walk in base 2^52 (VPMADD52): each SIMD lane walks
-// an independent live chunk of the SAME prime, mirroring the TPU
-// kernel's lane layout (ops/modp.py packs chunks across VPU lanes the
+// an independent live chunk of the SAME prime, mirroring the device
+// walk's lane layout (ops/modp.py packs chunks across lanes the
 // same way).  Per 52-bit prime the CRT loses ~15% bits vs the scalar
 // 61-bit walk but each Gray step runs ~8 lanes x fewer ops — measured
 // ~10-20x walk throughput on IFMA hosts, which moves cage5_c2-class
@@ -553,7 +553,7 @@ struct Mont52 {                       // Montgomery base R = 2^52
   uint64_t from(uint64_t a) const { return redc(a); }
 };
 
-// LAZY residues in [0, 2p), p < 2^50 (the integer twin of the TPU
+// LAZY residues in [0, 2p), p < 2^50 (the integer twin of the device
 // kernel's [0, 2p) discipline, ops/modp.py): REDC on operands < 2p
 // yields < 2p directly when 4p < 2^52, so the output correction
 // disappears, and every remaining correction is a mask-free
@@ -725,11 +725,11 @@ extern "C" int sup_cpu_ifma() { return 0; }
 // indices in [0, 2^(n-1-r)), chunk `id` covering Gray positions
 // m in [id<<r, (id+1)<<r); chunks absent from ids must be dead (some
 // row's walk value is 0 throughout the chunk, ops/modp._live_exact),
-// so the live sum IS per(M) mod p.  This is the CPU twin of the TPU
+// so the live sum IS per(M) mod p.  This is the CPU twin of the device
 // lazy-residue walk with 61-bit Montgomery arithmetic instead of
 // 11-bit f32 residues: a CRT needs ~5.5x fewer walks per bound bit,
 // which is what makes chesapeake-class cores reachable on a host when
-// no TPU is attached.  Requires odd p < 2^62 and 1 <= r <= 62.
+// no accelerator is used.  Requires odd p < 2^62 and 1 <= r <= 62.
 uint64_t sup_perman_mod_pruned(const uint64_t* a, int n, uint64_t p,
                                const int64_t* ids, long long nids, int r,
                                int threads) {

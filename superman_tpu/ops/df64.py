@@ -1,20 +1,32 @@
 """Double-float (df64) arithmetic: ~49-bit-mantissa reals as (hi, lo) f32 pairs.
 
-TPU VPUs are f32-native; the reference's `double` calc type
-(revised_perman/flags.h default; algo.h accumulates products in double over a
-float x-vector) is reproduced on TPU with compensated f32-pair arithmetic.
-All building blocks are branch-free and XLA-safe (no fast-math reassociation
-is applied by XLA, so Dekker/Knuth error terms survive compilation).
+The reference's `double` calc type (revised_perman/flags.h default;
+algo.h accumulates products in double over a float x-vector) is
+reproduced with compensated f32-pair arithmetic, which runs at the f32
+rate inside the walk kernel.  All building blocks are branch-free and
+run alike inside Pallas kernels and in plain jnp code.
 
-These run inside Pallas kernels and in plain jnp code alike.
+Fused multiply-add contraction.  XLA (CPU and GPU) and Triton may fuse
+a product into a following add.  An error-free transform breaks when
+its rounded product p = fl(a*b) feeds a sum that the compiler fuses
+into fma(a, b, x): the sum then sees the unrounded product while the
+error term assumes p.  So every rounded product an error-free chain
+consumes comes from a TwoProd `tp` that no compiler can fuse: the
+default computes it in float64 (exact for f32 operands, and a
+conversion is never contracted); the walk kernel passes an inline-PTX
+version (ops/ryser_pallas.py).  Products that are exact (by a sign, or
+of split halves) or that only feed low-order terms stay plain.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+from jax import lax
 
-_SPLIT = 4097.0  # 2**12 + 1, Veltkamp split constant for f32
+#: keeps the sign, exponent and top 23 of the 52 stored mantissa bits
+#: of a float64: the value truncated to f32 precision
+_F32_MANTISSA = -(1 << 29)
 
 
 def two_sum(a, b):
@@ -32,33 +44,18 @@ def quick_two_sum(a, b):
     return s, e
 
 
-def veltkamp_split(v):
-    """Split f32 into high/low 12-bit halves: v = h + l exactly."""
-    c = v * _SPLIT
-    h = c - (c - v)
-    return h, v - h
-
-
 def two_prod(a, b):
-    """Dekker TwoProd: a * b = p + e exactly (17 flops, fma-free)."""
-    p = a * b
-    ah, al = veltkamp_split(a)
-    bh, bl = veltkamp_split(b)
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
+    """TwoProd a * b = p + e exactly, through float64.
 
-
-def two_prod_presplit(a, ah, al, b, bh, bl):
-    """Dekker TwoProd with both operands pre-split (9 flops).
-
-    tf96 multiplies form three products over four distinct words
-    (a0*b0, a0*b1, a1*b0) — sharing the four Veltkamp splits saves
-    8 flops per product vs calling two_prod three times (ops/tf96.py
-    carries the full ledger).  Exactness is unchanged: the split is a
-    pure function of the word."""
-    p = a * b
-    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
-    return p, e
+    The f64 product w of two f32 values is exact (48 bits).  p is w
+    truncated to f32 precision by a bit mask and e = w - p, both exact
+    in f32 (|e| < ulp(p)): no rounded product exists for a compiler to
+    fuse into a neighbouring add, and no f32 round trip exists for it to
+    fold away as excess precision."""
+    w = a.astype(jnp.float64) * b.astype(jnp.float64)
+    bits = lax.bitcast_convert_type(w, jnp.int64) & jnp.int64(_F32_MANTISSA)
+    p = lax.bitcast_convert_type(bits, jnp.float64)
+    return p.astype(jnp.float32), (w - p).astype(jnp.float32)
 
 
 def df_add(ahi, alo, bhi, blo):
@@ -74,16 +71,16 @@ def df_add_f32(ahi, alo, b):
     return quick_two_sum(s, e)
 
 
-def df_mul(ahi, alo, bhi, blo):
-    """df64 * df64 (~23 flops)."""
-    p, e = two_prod(ahi, bhi)
+def df_mul(ahi, alo, bhi, blo, tp=two_prod):
+    """df64 * df64."""
+    p, e = tp(ahi, bhi)
     e = e + (ahi * blo + alo * bhi)
     return quick_two_sum(p, e)
 
 
-def df_mul_f32(ahi, alo, b):
-    """df64 * f32 (~21 flops)."""
-    p, e = two_prod(ahi, b)
+def df_mul_f32(ahi, alo, b, tp=two_prod):
+    """df64 * f32."""
+    p, e = tp(ahi, b)
     e = e + alo * b
     return quick_two_sum(p, e)
 
@@ -109,76 +106,75 @@ def join_f64(hi, lo) -> np.ndarray:
 
 # ------------------------------------------------------------ tree products
 #
-# Sublane alignment is load-bearing: slicing an (s, L) array at a row
-# offset that is not a multiple of 8 forces a Mosaic relayout (cross-
-# sublane shift) PER OP, which measured ~70x slower on n_pad=40 when the
-# tree halved 40 -> 20 -> 10 -> 5.  Non-power-of-two sizes therefore
-# first fold aligned 8-row groups (slices at multiples of 8 only), then
-# run the power-of-two ladder from 8.
+# A tree's factors come either as a list of equal-shape arrays (the walk
+# kernel's per-row lane vectors on the card, where values cannot be
+# sliced) or stacked in one array along axis 0 (the interpreter and
+# plain jnp callers, where one op per level beats one op per row).  Each
+# level pairs neighbours; an odd one out rides up a level, lifted to the
+# wider type.  Items are tuples of words: (x,), (hi, lo), (t0, t1, t2).
 
 
-def tree_prod_f32(x):
-    """Product over axis 0 of an (s, L) f32 array, log-depth tree.
-    s must be a power of two or a multiple of 8."""
-    s = x.shape[0]
-    if s & (s - 1) != 0:
-        assert s % 8 == 0, f"pad axis 0 to a multiple of 8, got {s}"
-        p = x[0:8] * x[8:16]
-        for b in range(2, s // 8):
-            p = p * x[8 * b:8 * b + 8]
-        x, s = p, 8
-    while s > 1:
-        s //= 2
-        x = x[:s] * x[s:]
-    return x
+def _count(items):
+    return len(items) if isinstance(items, list) else items[0].shape[0]
 
 
-def tree_prod_df64(x):
-    """Exact-leaning product over axis 0 of (s, L) f32 -> df64 (hi, lo).
+def _level(items, mul, lift):
+    if isinstance(items, list):
+        nxt = [mul(*items[i], *items[i + 1])
+               for i in range(0, len(items) - 1, 2)]
+        return nxt + [lift(*w) for w in items[len(nxt) * 2:]]
+    s = items[0].shape[0]
+    h = s // 2
+    nxt = mul(*(w[0:2 * h:2] for w in items), *(w[1:2 * h:2] for w in items))
+    if s % 2:
+        rest = lift(*(w[2 * h:] for w in items))
+        nxt = tuple(jnp.concatenate([a, b]) for a, b in zip(nxt, rest))
+    return nxt
 
-    Level 1 uses exact TwoProd on f32 pairs; higher levels are df64
-    multiplies.  Relative error ~ depth * 2^-48.  s must be a power of
-    two or a multiple of 8 (aligned 8-row groups fold first)."""
-    s = x.shape[0]
-    if s & (s - 1) != 0:
-        assert s % 8 == 0, f"pad axis 0 to a multiple of 8, got {s}"
-        hi, lo = two_prod(x[0:8], x[8:16])
-        for b in range(2, s // 8):
-            hi, lo = df_mul_f32(hi, lo, x[8 * b:8 * b + 8])
-        s = 8
+
+def _tree(xs, stages):
+    """Product of the factors xs (list or stacked, see above) through
+    typed stages [(mul, lift), ...]: one level per stage, and the last
+    stage repeated until one item remains.  Returns its words."""
+    items = [(x,) for x in xs] if isinstance(xs, list) else (xs,)
+    for mul, lift in stages[:-1]:
+        if _count(items) > 1:
+            items = _level(items, mul, lift)
+        else:
+            items = ([lift(*items[0])] if isinstance(items, list)
+                     else lift(*items))
+    mul = stages[-1][0]
+    while _count(items) > 1:
+        items = _level(items, mul, lambda *w: w)
+    return items[0] if isinstance(items, list) else tuple(
+        w[0] for w in items)
+
+
+def _lift_df(x):
+    return x, jnp.zeros_like(x)
+
+
+def tree_prod_f32(xs):
+    """Product of f32 factors, log-depth tree."""
+    return _tree(xs, [(lambda a, b: (a * b,), None)])[0]
+
+
+def tree_prod_df64(xs, tp=two_prod):
+    """Product of EXACT f32 factors -> df64 (hi, lo).  The first level is
+    an exact TwoProd; higher levels are df64 multiplies (relative error
+    ~ depth * 2^-48)."""
+    return _tree(xs, [(tp, _lift_df),
+                      (lambda *a: df_mul(*a, tp=tp), None)])
+
+
+def tree_prod_full_df(xhis, xlos, tp=two_prod):
+    """Product of df64 PAIR factors -> df64 (hi, lo)."""
+    if isinstance(xhis, list):
+        items = list(zip(xhis, xlos))
     else:
-        h = s // 2
-        hi, lo = two_prod(x[:h], x[h:])
-        s = h
-    while s > 1:
-        s //= 2
-        hi, lo = df_mul(hi[:s], lo[:s], hi[s:], lo[s:])
-    return hi, lo
-
-
-def tree_prod_full_df(xhi, xlo):
-    """Product over axis 0 of an (s, L) df64 PAIR -> (1, L) df64.
-    Level 1 folds the lo parts into the exact TwoProd by one df
-    correction; higher levels are df64 multiplies."""
-    s = xhi.shape[0]
-
-    def pair_l1(ahi, alo, bhi, blo):
-        phi, plo = two_prod(ahi, bhi)
-        plo = plo + (ahi * blo + alo * bhi)
-        return quick_two_sum(phi, plo)
-
-    if s & (s - 1) != 0:
-        assert s % 8 == 0, f"pad axis 0 to a multiple of 8, got {s}"
-        hi, lo = pair_l1(xhi[0:8], xlo[0:8], xhi[8:16], xlo[8:16])
-        for b in range(2, s // 8):
-            sl = slice(8 * b, 8 * b + 8)
-            hi, lo = df_mul(hi, lo, xhi[sl], xlo[sl])
-        s = 8
-    else:
-        h = s // 2
-        hi, lo = pair_l1(xhi[:h], xlo[:h], xhi[h:], xlo[h:])
-        s = h
-    while s > 1:
-        s //= 2
-        hi, lo = df_mul(hi[:s], lo[:s], hi[s:], lo[s:])
-    return hi, lo
+        items = (xhis, xlos)
+    mul = lambda *a: df_mul(*a, tp=tp)  # noqa: E731
+    while _count(items) > 1:
+        items = _level(items, mul, lambda *w: w)
+    return items[0] if isinstance(items, list) else tuple(
+        w[0] for w in items)

@@ -207,7 +207,7 @@ def _log2_bound(m: List[List[int]]) -> float:
     tightened to Bregman–Minc  per(A) <= prod_i (r_i!)^(1/r_i)  — on
     pattern cores (chesapeake-class, row degrees ~10-20) that is ~25-30%
     fewer bits, which is ~25-30% fewer CRT primes and hence walks for
-    the native and TPU Z_p engines (every prime is a full 2^(n-1-r)
+    the native and device Z_p engines (every prime is a full 2^(n-1-r)
     Gray walk; the bound is a direct throughput multiplier)."""
     n = len(m)
     rows = [sum(abs(v) for v in row) for row in m]
@@ -231,26 +231,10 @@ def _log2_bound(m: List[List[int]]) -> float:
     return best
 
 
-#: native cost above which the TPU modular engine (ops/modp.py) takes
-#: over when a TPU is attached; below it the CPU walk wins (no Mosaic
-#: compile, 61-bit primes need ~5x fewer walks per CRT bit)
-_TPU_CROSSOVER_S = 300.0
-
-#: fixed TPU overhead charged in estimates: Mosaic compiles + packing
-_TPU_FIXED_S = 120.0
-
 #: dense-native cost above which the CPU path pays for a pruned plan
 #: (core_plan: host bigint liveness, seconds-minutes) and runs the
 #: checkpointed CRT pipeline instead of the flat batch walk
 _NATIVE_PLAN_FLOOR_S = 60.0
-
-
-def _tpu_backend() -> bool:
-    try:
-        import jax
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
 
 
 def exact_cost_estimate(a: np.ndarray,
@@ -258,15 +242,11 @@ def exact_cost_estimate(a: np.ndarray,
     """(seconds, nprimes, core_n) for perman_exact_fraction on this host.
 
     ~6 ns per (column-update + Montgomery product) element step for the
-    native CPU walk; past _TPU_CROSSOVER_S with a TPU attached, the
-    estimate switches to the modular Pallas engine's (ops/modp.py).
+    native CPU walk; cores past the native engine's reach (no compiler,
+    n > 16) price at infinity.
 
-    budget_s: the caller's acceptance threshold, if it has one.  The TPU
-    estimate itself is EXPENSIVE (it computes the real pruned plan —
-    host bigint liveness over up to 2^26-entry gray masks) and can never
-    come in under _TPU_FIXED_S, so when the budget is below that the TPU
-    branch is skipped outright: the answer ("too expensive") is already
-    known, and the plan would be wasted.
+    budget_s: the caller's acceptance threshold, if it has one (the
+    pruned-plan price is computed only when the budget could cover it).
     """
     m, k = dyadic_int_matrix(a)
     core, mult = _fold_lines([row[:] for row in m])
@@ -278,27 +258,7 @@ def exact_cost_estimate(a: np.ndarray,
     secs = npr * (1 << max(0, n - 1)) * n * 6e-9
     from ..bindings.native import native_available
     if n > 16 and not native_available():
-        # the 6 ns/element model prices the NATIVE walk, but the
-        # engine=None selection below can only route this core to the
-        # TPU engine (real floor: _TPU_FIXED_S of Mosaic compiles) or
-        # raise — returning the native price would let a caller with a
-        # small budget accept an estimate no backend can honor
-        # (round-3 advisor finding).
-        if not _tpu_backend():
-            return math.inf, npr, n
-        from .modp import PRIME_CEIL, tpu_cost_estimate
-        # prime count must match the engine being priced: the TPU walk
-        # uses <=11-bit primes (~5.5x more walks than the native 61-bit
-        # count computed above — round-4 review finding #4)
-        npr = max(1, math.ceil(bits / math.log2(PRIME_CEIL))) + 1
-        secs = max(secs, _TPU_FIXED_S)
-        if budget_s is not None and budget_s <= _TPU_FIXED_S:
-            return secs, npr, n     # already over budget; skip the plan
-        return tpu_cost_estimate(core, bits) + _TPU_FIXED_S, npr, n
-    if (secs > _TPU_CROSSOVER_S and _tpu_backend()
-            and (budget_s is None or budget_s > _TPU_FIXED_S)):
-        from .modp import tpu_cost_estimate
-        secs = min(secs, tpu_cost_estimate(core, bits) + _TPU_FIXED_S)
+        return math.inf, npr, n
     if (secs > _NATIVE_PLAN_FLOOR_S and native_available()
             and (budget_s is None or budget_s > _NATIVE_PLAN_FLOOR_S)):
         # pruned-native price: the plan is cached by core fingerprint,
@@ -325,10 +285,10 @@ def perman_exact_fraction(a: np.ndarray, threads: int = 0,
                           ) -> Tuple[Fraction, dict]:
     """EXACT permanent of the f64 matrix `a`, as a Fraction.
 
-    engine: None picks by cost — native CPU Montgomery walks for cheap
-    cores, the TPU modular Pallas engine (ops/modp.py) past
-    _TPU_CROSSOVER_S when a TPU is attached; "native" / "tpu" / "host"
-    force a backend (tests force "tpu" in interpret mode off-device).
+    engine: None picks the native CPU Montgomery walks (or the pure
+    Python host walk for cores up to n=16 without a compiler);
+    "native" / "device" / "host" force a backend — "device" is the
+    lazy-residue Z_p walk on the default JAX device (ops/modp.py).
     """
     t0 = time.perf_counter()
     a = np.asarray(a, dtype=np.float64)
@@ -349,27 +309,19 @@ def perman_exact_fraction(a: np.ndarray, threads: int = 0,
         need = max(1, math.ceil(bits / 61.0))
         from ..bindings.native import native_available, perman_mod_batch
         if engine is None:
-            native_secs = ((need + 1) * (1 << max(0, nc - 1)) * nc * 6e-9
-                           if native_available() and nc >= 2 else math.inf)
-            if native_secs <= _TPU_CROSSOVER_S:
-                engine = "native"
-            elif _tpu_backend():
-                from .modp import tpu_cost_estimate
-                engine = ("tpu" if tpu_cost_estimate(core, bits)
-                          + _TPU_FIXED_S < native_secs else "native")
-            elif math.isfinite(native_secs):
+            if native_available() and nc >= 2:
                 engine = "native"
             elif nc <= 16:
                 engine = "host"
             else:
                 raise RuntimeError(
-                    f"exact permanent needs the native engine or a TPU "
-                    f"for core n={nc}")
-        if engine == "tpu":
+                    f"exact permanent needs the native engine for core "
+                    f"n={nc}")
+        if engine == "device":
             from .modp import crt_perman_core
             per_core, tmeta = crt_perman_core(
                 core, log=log, checkpoint_path=checkpoint_path)
-            meta.update(engine="tpu_mod", nprimes=tmeta["nprimes"],
+            meta.update(engine="device_mod", nprimes=tmeta["nprimes"],
                         bound_bits=tmeta["bound_bits"],
                         live_frac=tmeta["live_frac"])
         elif (engine == "native" and native_available() and nc >= 2

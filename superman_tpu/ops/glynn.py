@@ -5,15 +5,15 @@ per(A) = 2^(1-n) * sum over delta in {+-1}^n with delta_n = +1 of
 
 The reference has no Glynn implementation; it is added here because
 cross-ALGORITHM agreement is the primary correctness oracle (SURVEY.md
-§4.1) and Ryser/Nijenhuis-Wilf otherwise provides every TPU result.
+§4.1) and Ryser/Nijenhuis-Wilf otherwise provides every device result.
 
-The Gray walk over delta maps EXACTLY onto the Ryser Pallas kernel
+The Gray walk over delta maps EXACTLY onto the Ryser walk kernel
 (ops/ryser_pallas.py) with different packing:
 
 * state x_j = sum_i delta_i a_ij; initially (all delta = +1) the column
   sums of A;
 * flipping delta_k toggles -2*a[k, :] in and out of x — so the kernel's
-  "column table" holds  G[:, k] = -2 * (row k of A)  for k < n-1;
+  column table holds  G[k, :] = -2 * (row k of A)  for k < n-1;
 * the term sign (prod delta) = (-1)^popcount(gray(m)) = (-1)^m — the
   parity the kernel already applies (XOR of Gray bits telescopes to m&1);
 * final factor 2^(1-n) replaces Ryser's (4*(n&1)-2).
@@ -33,14 +33,13 @@ from __future__ import annotations
 import time
 from typing import Optional
 
-import jax
 import numpy as np
 
+from .. import backend
 from ..core.matrix import DenseMatrix
 from ..core.result import Result
 from . import gray
 from .df64 import split_f64
-from .ryser import colst_pack
 
 
 def _col_scales(a: np.ndarray) -> np.ndarray:
@@ -109,11 +108,11 @@ def glynn_exact(dense: DenseMatrix, flags, mesh=None) -> Result:
     from ..parallel.sharding import pad_ids, compute_partials
     num_shards = (int(np.prod(mesh.devices.shape))
                   if mesh is not None else 1)
-    plan = gray.make_plan(n, flags.lanes, flags.chunk_log2, df=df or tf,
+    plan = gray.make_plan(n, flags.lanes, flags.chunk_log2,
                           num_shards=num_shards)
     ids_blocks = pad_ids(
         np.arange(plan.num_chunks, dtype=np.int32), plan.lanes, num_shards)
-    interpret = jax.default_backend() != "tpu"
+    interpret = backend.interpret()
 
     scales = _col_scales(a)
     best = None
@@ -122,12 +121,8 @@ def glynn_exact(dense: DenseMatrix, flags, mesh=None) -> Result:
     for attempt in range(3):
         a_s = np.ldexp(a.astype(np.float64), -scales[None, :])
         x0_pair, cols_pair = _pack_glynn(a_s, plan.n_pad)
-        # the kernel's transposed column table: lane k = -2 * row k
-        g = np.zeros((n, n), dtype=np.float64)
-        g[:, : n - 1] = -2.0 * a_s[: n - 1, :].T
-        cth, ctl = colst_pack_from(g, plan.n_pad)
         partials = compute_partials(
-            ids_blocks, x0_pair, cols_pair, cth, ctl, plan,
+            ids_blocks, x0_pair, cols_pair, plan,
             df=df, exact_storage=exact_storage, mesh=mesh, kahan=kahan,
             tf=tf, interpret=interpret)
         total = (partials.sum(dtype=np.longdouble) if tf
@@ -156,14 +151,3 @@ def glynn_exact(dense: DenseMatrix, flags, mesh=None) -> Result:
                   meta={"calc": calc, "scale_log2": E,
                         "iters_per_sec": iters / dt})
 
-
-def colst_pack_from(g: np.ndarray, n_pad: int):
-    """colst tables from an explicit walk matrix g (n, n) whose column k
-    is the k-th flip vector (cf. ops/ryser.py colst_pack, which derives
-    them from the input matrix's columns)."""
-    n = g.shape[0]
-    nb_pad = -(-(n - 1) // 128) * 128
-    cols = np.zeros((n_pad, nb_pad), dtype=np.float64)
-    cols[:n, : n - 1] = g[:, : n - 1]
-    hi, lo = split_f64(cols)
-    return hi, lo

@@ -1,8 +1,8 @@
 """Pure-XLA (no Pallas) lane-vectorized Ryser walk.
 
-Used for: float64 calc (XLA emulates f64 on TPU; native on CPU), small
-matrices where kernel launch overhead dominates, and as an independent
-cross-check of the Pallas kernel (the reference's test strategy is
+Used for: float64 calc (IEEE double on the device), small matrices
+where kernel launch overhead dominates, and as an independent
+cross-check of the walk kernel (the reference's test strategy is
 cross-algorithm agreement, SURVEY.md §4).
 """
 
@@ -43,13 +43,8 @@ def _walk(X, sign_mid, cols, *, n: int, r: int, dtype):
 
 
 def ryser_xla(a: np.ndarray, dtype=jnp.float64, max_lanes: int = 1 << 13):
-    """Exact permanent via the XLA walk; float64 end to end by default.
-
-    float64 runs pinned to the host CPU device: XLA:TPU emulates f64 with an
-    f32-range exponent (1e200*1e100 -> inf there), so true IEEE-double range
-    — which the reference's default double path relies on — only exists on
-    the host.  f32 calc stays on the accelerator.
-    """
+    """Exact permanent via the XLA walk; float64 end to end by default
+    (the reference's default double path), on the default device."""
     a = np.asarray(a, dtype=np.float64)
     n = a.shape[0]
     if n <= 2:
@@ -64,10 +59,6 @@ def ryser_xla(a: np.ndarray, dtype=jnp.float64, max_lanes: int = 1 << 13):
 
     args = (jnp.asarray(X, dtype=dtype), jnp.asarray(sign_mid, dtype=dtype),
             jnp.asarray(a[:, : n - 1].T, dtype=dtype))
-    if dtype == jnp.float64 and jax.default_backend() != "cpu":
-        with jax.default_device(jax.devices("cpu")[0]):
-            acc = _walk(*args, n=n, r=r, dtype=dtype)
-    else:
-        acc = _walk(*args, n=n, r=r, dtype=dtype)
+    acc = _walk(*args, n=n, r=r, dtype=dtype)
     total_sum = float(np.sum(np.asarray(acc, dtype=np.float64)))
     return (4 * (n & 1) - 2) * total_sum

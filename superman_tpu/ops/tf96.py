@@ -4,7 +4,7 @@ A precision tier above df64 (ops/df64.py) for the cancellation-dominated
 cases where df64's ~2^-48 per-term product error caps end accuracy at
 ~1e-8..1e-9 (dense d=0.9 suites, all-ones matrices).  The reference's
 only answer there is quad on the CPU (hours at n>=32); tf96 keeps the
-walk on the TPU at ~2-3x the df64 cost.
+walk on the accelerator at a few times the df64 cost.
 
 Representation: (x0, x1, x2) f32 words, ulp-nonoverlapping after
 renormalization, value = x0 + x1 + x2.  Algorithms follow the standard
@@ -18,8 +18,7 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 
-from .df64 import (quick_two_sum, two_prod, two_prod_presplit, two_sum,
-                   veltkamp_split)
+from .df64 import _lift_df, _tree, quick_two_sum, two_prod, two_sum
 
 
 def renorm3(a0, a1, a2):
@@ -69,22 +68,15 @@ def tf_from_dd(hi, lo):
     return hi, lo, z
 
 
-def tf_mul_dd(ahi, alo, bhi, blo):
-    """(exact df64) x (exact df64) -> tf96, error ~2^-70 relative
-    (81 flops: shared splits 16 + presplit products 27 + TwoSums 12 +
-    FastTwoSum 3 + order-2 fold 5 + TwoSum 6 + renorm3_prod 9 + a
-    stray mul; was 104 with per-product splits and full renorm3).
+def tf_mul_dd(ahi, alo, bhi, blo, tp=two_prod):
+    """(exact df64) x (exact df64) -> tf96, error ~2^-70 relative.
 
     Order-1 words (e0, p1, p2 ~ 2^-24 of the product) flow through exact
     TwoSums only; order-2 words (~2^-48) may be folded linearly — their
     rounding lands at ~2^-72."""
-    ah, al = veltkamp_split(ahi)
-    lh, ll = veltkamp_split(alo)
-    bh, bl = veltkamp_split(bhi)
-    mh, ml = veltkamp_split(blo)
-    p0, e0 = two_prod_presplit(ahi, ah, al, bhi, bh, bl)   # dominant
-    p1, e1 = two_prod_presplit(ahi, ah, al, blo, mh, ml)
-    p2, e2 = two_prod_presplit(alo, lh, ll, bhi, bh, bl)
+    p0, e0 = tp(ahi, bhi)                # dominant
+    p1, e1 = tp(ahi, blo)
+    p2, e2 = tp(alo, bhi)
     t, et = two_sum(p1, p2)
     s, es = two_sum(t, e0)               # exact order-1 sum
     # |s| <= ~2^-21.6 |p0| structurally -> FastTwoSum is safe
@@ -94,17 +86,11 @@ def tf_mul_dd(ahi, alo, bhi, blo):
     return renorm3_prod(r0, r1, r2)
 
 
-def tf_mul(a0, a1, a2, b0, b1, b2):
-    """Triple x triple -> triple, error ~2^-70 relative (85 flops; was
-    102 before split sharing + structural Fast/cheap renorm — the
-    round-4 tf96 flop cut, validated by the exact-integer fuzz)."""
-    ah, al = veltkamp_split(a0)
-    ch, cl = veltkamp_split(a1)
-    bh, bl = veltkamp_split(b0)
-    dh, dl = veltkamp_split(b1)
-    p0, e0 = two_prod_presplit(a0, ah, al, b0, bh, bl)     # exact dominant
-    p1, e1 = two_prod_presplit(a0, ah, al, b1, dh, dl)
-    p2, e2 = two_prod_presplit(a1, ch, cl, b0, bh, bl)
+def tf_mul(a0, a1, a2, b0, b1, b2, tp=two_prod):
+    """Triple x triple -> triple, error ~2^-70 relative."""
+    p0, e0 = tp(a0, b0)                  # exact dominant
+    p1, e1 = tp(a0, b1)
+    p2, e2 = tp(a1, b0)
     t, et = two_sum(p1, p2)
     s, es = two_sum(t, e0)               # exact order-1 sum
     r0, c = quick_two_sum(p0, s)         # |s| <= ~2^-21.6 |p0|
@@ -114,39 +100,15 @@ def tf_mul(a0, a1, a2, b0, b1, b2):
     return renorm3_prod(r0, r1, r2)
 
 
-def tree_prod_tf96(x):
-    """Product over axis 0 of an (s, L) EXACT-f32 array -> tf96 triple.
+def tree_prod_tf96(xs, tp=two_prod):
+    """Product of EXACT f32 factors (a list, or stacked on axis 0; see
+    ops/df64.py) -> tf96 triple.
 
     Level 1 pairs are exact df64 (TwoProd); level 2 products of exact
     df64 pairs are tf96 with ~2^-72 error (tf_mul_dd); higher levels are
-    tf96 multiplies.  s must be a power of two or a multiple of 8
-    (aligned 8-row groups fold first, as in ops/df64 trees)."""
-    s = x.shape[0]
-    if s & (s - 1) != 0:
-        assert s % 8 == 0, f"pad axis 0 to a multiple of 8, got {s}"
-        # fold to 8 rows with exact df64 pairs first, then lift
-        hi, lo = two_prod(x[0:8], x[8:16])
-        blocks = s // 8
-        if blocks == 2:
-            t0, t1, t2 = tf_from_dd(hi, lo)
-        else:
-            t0, t1, t2 = tf_mul_dd(hi, lo, x[16:24],
-                                   jnp.zeros_like(hi))
-            for b in range(3, blocks):
-                t0, t1, t2 = tf_mul(t0, t1, t2, x[8 * b:8 * b + 8],
-                                    jnp.zeros_like(hi), jnp.zeros_like(hi))
-        s = 8
-    else:
-        h = s // 2
-        hi, lo = two_prod(x[:h], x[h:])      # exact
-        s = h
-        if s > 1:
-            s //= 2
-            t0, t1, t2 = tf_mul_dd(hi[:s], lo[:s], hi[s:], lo[s:])
-        else:
-            t0, t1, t2 = tf_from_dd(hi, lo)
-    while s > 1:
-        s //= 2
-        t0, t1, t2 = tf_mul(t0[:s], t1[:s], t2[:s],
-                            t0[s:], t1[s:], t2[s:])
-    return t0, t1, t2
+    tf96 multiplies.  An odd factor rides up a level, zero-extended."""
+    return _tree(xs, [
+        (tp, _lift_df),
+        (lambda *a: tf_mul_dd(*a, tp=tp), lambda h, l: (h, l,
+                                                         jnp.zeros_like(h))),
+        (lambda *a: tf_mul(*a, tp=tp), None)])

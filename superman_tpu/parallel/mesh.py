@@ -1,6 +1,6 @@
 """Device mesh construction and (multi-host) runtime initialization.
 
-TPU-native replacement for the reference's device handling (OpenMP thread
+The engine's replacement for the reference's device handling (OpenMP thread
 per GPU + cudaSetDevice, gpu_exact_dense.cu:729-755): a 1-D
 `jax.sharding.Mesh` over all addressable chips; multi-host slices join via
 `jax.distributed.initialize` and the same code path shards over the global

@@ -1,6 +1,6 @@
 """Multi-host work partitioning: deterministic interleaved chunk ownership.
 
-TPU-native replacement for the reference's (single-node-only) work
+The engine's replacement for the reference's (single-node-only) work
 distribution, per SURVEY.md §2.5: there is no cross-host shared counter,
 so the OpenMP-critical chunk scheduler becomes a DETERMINISTIC interleaved
 assignment — host p owns block rows p, p+P, p+2P, ... of the (B, L) chunk

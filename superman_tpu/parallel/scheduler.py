@@ -1,12 +1,12 @@
-"""Hybrid dynamic chunk scheduler: TPU + native-CPU workers over one queue.
+"""Hybrid dynamic chunk scheduler: device + native-CPU workers over one queue.
 
 Parity: the reference's dynamic chunked multi-GPU+CPU load balancer
 (`gpu_perman64_*_multigpucpu_chunks`, gpu_exact_dense.cu:776-896): the
 Gray-code range is over-decomposed into work units; `gpu_num+1` OpenMP
 threads pull unit ids from a shared counter under `#pragma omp critical`,
-with thread `gpu_num` running the OpenMP CPU kernel.  TPU-native redesign:
+with thread `gpu_num` running the OpenMP CPU kernel.  Redesign:
 
-* one Python worker thread drives the (possibly mesh-sharded) Pallas
+* one Python worker thread drives the (possibly mesh-sharded) device
   engine, an optional second drives the native C++ OpenMP engine
   (native/perman_cpu.cpp: sup_perman_dense_chunks) — both pull unit ids
   from a lock-protected counter (the GIL is released inside both device
@@ -19,7 +19,7 @@ with thread `gpu_num` running the OpenMP CPU kernel.  TPU-native redesign:
   shaped for it — SURVEY.md §5);
 * a unit that raises is retried (up to 3 attempts); a unit that exhausts
   its retries on one worker kind is handed back to the queue for the
-  OTHER kind (a persistent TPU-side error still completes on the CPU
+  OTHER kind (a persistent device-side error still completes on the CPU
   worker), and the run only fails once every participating kind has
   rejected it — failure detection and recovery the reference lacks (it
   exit(1)s);
@@ -52,7 +52,7 @@ from ..utils import trace
 @dataclass
 class HybridStats:
     units_total: int = 0
-    units_tpu: int = 0
+    units_device: int = 0
     units_cpu: int = 0
     units_resumed: int = 0
     retries: int = 0
@@ -127,7 +127,7 @@ class _Journal:
 
 def compute_partials_hybrid(
         a_s: np.ndarray, ids_blocks: np.ndarray, x0_pair, cols_pair,
-        colst_hi, colst_lo, plan: "gray.RyserPlan", *,
+        plan: "gray.RyserPlan", *,
         df: bool, exact_storage: bool, mesh=None, kahan: bool = False,
         interpret: bool = False,
         threads: int = 16, cpu_helper: bool = True,
@@ -149,7 +149,7 @@ def compute_partials_hybrid(
         unit_blocks = max(num_shards, B // max(1, 8 * workers))
     unit_blocks = -(-max(unit_blocks, num_shards) // num_shards) * num_shards
     # the CPU worker pulls FINER units so a slow CPU grab near the end
-    # cannot stall the finish (measured: a coarse CPU unit idled the TPU
+    # cannot stall the finish (a coarse CPU unit can idle the device
     # for seconds in the tail)
     cpu_blocks = max(num_shards, unit_blocks // 8)
 
@@ -168,12 +168,12 @@ def compute_partials_hybrid(
     results: dict[int, float] = {}
     failures: list[tuple[int, str, BaseException]] = []
     # blocks a worker KIND has exhausted its retries on; the unit returns
-    # to the queue for the OTHER kind (e.g. a persistent TPU-side error
+    # to the queue for the OTHER kind (e.g. a persistent device-side error
     # still completes on the CPU worker) and the run only fails if every
     # participating kind rejected it
-    banned = {"tpu": np.zeros(B, dtype=bool),
+    banned = {"device": np.zeros(B, dtype=bool),
               "cpu": np.zeros(B, dtype=bool)}
-    alive = {"tpu": False, "cpu": False}
+    alive = {"device": False, "cpu": False}
 
     def pull(k: int, kind: str) -> Optional[tuple[int, int]]:
         """Next run of up to k uncovered contiguous blocks this worker
@@ -207,7 +207,7 @@ def compute_partials_hybrid(
             failures.append((start, kind, err))
             pos[0] = min(pos[0], start)
 
-    def run_tpu_unit(start: int, end: int) -> float:
+    def run_device_unit(start: int, end: int) -> float:
         blk = ids_blocks[start:end]
         # pad every unit to the same (unit_blocks, L) shape: one compiled
         # kernel serves the whole run (sentinel -1 lanes contribute 0)
@@ -215,9 +215,9 @@ def compute_partials_hybrid(
         if pad:
             blk = np.concatenate(
                 [blk, np.full((pad, blk.shape[1]), -1, np.int32)])
-        out = compute_partials(blk, x0_pair, cols_pair, colst_hi, colst_lo,
-                               plan, df=df, exact_storage=exact_storage,
-                               mesh=mesh, kahan=kahan, interpret=interpret)
+        out = compute_partials(blk, x0_pair, cols_pair, plan, df=df,
+                               exact_storage=exact_storage, mesh=mesh,
+                               kahan=kahan, interpret=interpret)
         return float(out.sum(dtype=np.float64))
 
     def run_cpu_unit(start: int, end: int) -> float:
@@ -231,7 +231,7 @@ def compute_partials_hybrid(
     def worker(kind: str, fn, k: int):
         # alive[kind] was set True before the thread started (setting it
         # here would race the other worker's liveness check)
-        other = "cpu" if kind == "tpu" else "tpu"
+        other = "cpu" if kind == "device" else "device"
         try:
             _worker_loop(kind, other, fn, k)
         finally:
@@ -247,7 +247,7 @@ def compute_partials_hybrid(
                         return
                     # blocks banned for BOTH kinds can never complete;
                     # don't wait on those (the final check reports them)
-                    if np.all(banned["tpu"][uncov] & banned["cpu"][uncov]):
+                    if np.all(banned["device"][uncov] & banned["cpu"][uncov]):
                         return
                 # the other worker is still running and may hand units
                 # back to this kind; wait for it
@@ -278,8 +278,8 @@ def compute_partials_hybrid(
             with lock:
                 results[start] = value
                 stats.units_total += 1
-                if kind == "tpu":
-                    stats.units_tpu += 1
+                if kind == "device":
+                    stats.units_device += 1
                 else:
                     stats.units_cpu += 1
                 if banned[other][start:end].any():
@@ -288,10 +288,10 @@ def compute_partials_hybrid(
             trace.log(f"blocks [{start},{end}) DONE by {kind} "
                       f"in {dt:.4f}s", level=2)
 
-    tpu_thread = threading.Thread(
-        target=worker, args=("tpu", run_tpu_unit, unit_blocks),
-        name="hybrid-tpu")
-    threads_list = [("tpu", tpu_thread)]
+    device_thread = threading.Thread(
+        target=worker, args=("device", run_device_unit, unit_blocks),
+        name="hybrid-device")
+    threads_list = [("device", device_thread)]
     if cpu_helper:
         from ..bindings.native import native_available
         if native_available():
@@ -300,7 +300,7 @@ def compute_partials_hybrid(
                 name="hybrid-cpu")))
         else:
             trace.log("hybrid: native CPU engine unavailable, "
-                      "running TPU-only", level=1)
+                      "running device-only", level=1)
     for kind, _ in threads_list:
         alive[kind] = True
     for _, t in threads_list:

@@ -162,7 +162,7 @@ def prune_order(a: np.ndarray, r: int) -> list:
     * "random": a shuffled tie-break of mindeg.
 
     The reference's orderings (SortOrder/SkipOrder, util.h:553-684)
-    optimize for per-thread skip length; these optimize for the TPU
+    optimize for per-thread skip length; these optimize for the device
     engine's chunk-granular pruning instead.
     """
     a = np.asarray(a)

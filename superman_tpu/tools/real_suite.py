@@ -17,7 +17,7 @@ established by cross-engine arbitration, the same policy the fuzzer uses
    the cost estimate is small) — zero-error, held-out-prime certified;
 2. exact DFS on the d1/d2-folded core (independent exact algorithm —
    where both exist they must agree to f64 rounding);
-3. TPU tf96 (integer matrices only), native C++ double, host f64.
+3. device tf96 (integer matrices only), native C++ double, host f64.
 
 Fixed-precision engines carry an irreducible error ~amp * 2^-mantissa
 where amp = sum_m |term_m| (real matrices measured up to 2^280 above
@@ -349,7 +349,7 @@ def run_suite(out_path: str = "SUITE_REPORT_REAL.jsonl",
 
         if cls == "B2":
             # exact, arbitrated by the certified exact-CRT value when one
-            # is recorded (EXACT_KNOWN.jsonl — will57's round-5 TPU Z_p
+            # is recorded (EXACT_KNOWN.jsonl — will57's device Z_p
             # certification); else by an independent-conditioning path:
             # the Sinkhorn-scaled df64 walk reorganizes the Ryser sum, so
             # agreement at 1e-5 is meaningful.  (An f32k cross-check is
@@ -450,7 +450,7 @@ def run_suite(out_path: str = "SUITE_REPORT_REAL.jsonl",
                     failures += xrel > 1e-12
                 log(f"{name}: core DFS per = {dfs:.12e} "
                     f"({time.perf_counter() - t0:.1f} s)")
-            # TPU configs run calc="auto": real matrices carry real
+            # device configs run calc="auto": real matrices carry real
             # cancellation (measured: chesapeake's raw df64 walk is
             # ~1.3e-5 off at n=39 — amplification ~2^33), and auto's
             # escalation probe exists exactly for that.  The suite
@@ -509,7 +509,7 @@ def run_suite(out_path: str = "SUITE_REPORT_REAL.jsonl",
                 if ints:
                     t0 = time.perf_counter()
                     r = sp.permanent(path, calc="tf96")
-                    ref_val, ref_src = float(r.permanent), "tpu_tf96"
+                    ref_val, ref_src = float(r.permanent), "device_tf96"
                     log(f"{name}: tf96 arbiter = {ref_val:.12e} "
                         f"({time.perf_counter() - t0:.1f} s)")
                 elif ("native_double" in vals
@@ -542,7 +542,7 @@ def run_suite(out_path: str = "SUITE_REPORT_REAL.jsonl",
                     if cfg == "exact":
                         tol = 1e-12      # same integer, f64-rounded
                     elif cfg in ("direct", "sparse"):
-                        tol = (1e-7 if ref_src == "tpu_tf96"
+                        tol = (1e-7 if ref_src == "device_tf96"
                                or ref_src.startswith("dfs_core")
                                or ref_src.startswith("exact_crt")
                                else 1e-6)

@@ -1,9 +1,9 @@
 """Sparse-engine hardware evidence: wall-clock + accuracy sweep.
 
 For each sparse suite matrix, runs the dense df64 walk and the pruned
-sparse walk on the real TPU, checks both against the recorded
-native-double value (from the existing SUITE_REPORT*.jsonl evidence, or
-fresh native when absent), and records speedup + plan facts.
+sparse walk on the GPU, checks both against the recorded
+native-double value (from suite report files when present, or fresh
+native when absent), and records speedup + plan facts.
 
     python -m superman_tpu.tools.sparse_report [--out FILE]
 """

@@ -1,6 +1,6 @@
 """Cross-engine sweep over the reference's Erdős–Rényi suites.
 
-Runs the TPU df64 engine against the independent native C++ double engine
+Runs the device df64 engine against the independent native C++ double engine
 on bundled reference matrices (BASELINE.md correctness target: int suites
 n=30-33 across densities) and reports per-matrix relative differences.
 
@@ -26,15 +26,15 @@ def check(files, out=None, log=print, calc="df64"):
     worst = 0.0
     for path in files:
         t0 = time.time()
-        tpu = sp.permanent(path, calc=calc)
+        dev = sp.permanent(path, calc=calc)
         nat = sp.permanent(path, calc="f64", cpu=True, gpu=False)
-        rel = (abs(tpu.permanent - nat.permanent)
+        rel = (abs(dev.permanent - nat.permanent)
                / max(abs(nat.permanent), 1e-300))
         worst = max(worst, rel)
         rec = {"file": path.split("/")[-1], "calc": calc,
-               "tpu": tpu.permanent, "native_double": nat.permanent,
+               "device": dev.permanent, "native_double": nat.permanent,
                "rel_diff": float(f"{rel:.3e}"),
-               "tpu_s": round(tpu.time, 3), "native_s": round(nat.time, 3),
+               "device_s": round(dev.time, 3), "native_s": round(nat.time, 3),
                "wall_s": round(time.time() - t0, 2)}
         rows.append(rec)
         log(json.dumps(rec))

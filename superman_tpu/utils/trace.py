@@ -4,7 +4,7 @@ Parity: the reference's observability surface (SURVEY.md §5) — wall-clock
 timing around every engine (omp_get_wtime, main.cu:35-37), per-chunk
 progress lines ("ChunkID k is DONE by kernel i in t",
 gpu_exact_dense.cu:876), and the `make profile` Nsight hook
-(revised_perman/Makefile:28-40) — rebuilt TPU-native:
+(revised_perman/Makefile:28-40) — rebuilt for JAX:
 
 * `log(...)`        — leveled stderr logging, enabled with
                       SUPERMAN_VERBOSE=1 (or 2 for per-chunk noise).
@@ -12,7 +12,7 @@ gpu_exact_dense.cu:876), and the `make profile` Nsight hook
                       retrievable via `drain_spans()` for Result.meta.
 * `profile(name)`   — context manager that wraps the block in a
                       `jax.profiler.trace` when SUPERMAN_PROFILE_DIR is set
-                      (TensorBoard-compatible XPlane dump; the TPU
+                      (TensorBoard-compatible XPlane dump; the JAX
                       equivalent of compiling with -lineinfo for Nsight).
 """
 

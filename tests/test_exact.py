@@ -6,7 +6,7 @@ Cross-validated here against two independent exact algorithms (bigint DFS
 and a Fraction permutation sum) plus the pure-Python Z_p twin of the
 native Montgomery kernel.  No reference counterpart (the reference's
 highest tier is __float128, main.cpp:141-167, which is noise on
-cancellation-bound inputs — see SUITE_REPORT_REAL.jsonl).
+cancellation-bound inputs).
 """
 
 import itertools
@@ -366,8 +366,8 @@ def test_compression_sanity_escalates_to_exact(rng):
 @pytest.mark.skipif(not native.native_available(), reason="no native lib")
 def test_d_ss_compression_rescued_by_exact():
     """End-to-end on the reference's real d_ss matrix (n=53, d1/d2 core
-    n=15): the compressed walk is cancellation-bound (off by ~4e11,
-    SUITE_REPORT_REAL.jsonl) and the sanity layer must return the exact
+    n=15): the compressed walk is cancellation-bound (off by ~4e11)
+    and the sanity layer must return the exact
     CRT value instead.  Reference known_perman corpus, SURVEY §4.3."""
     import os
     path = ("/root/reference/revised_perman/elektrik_matrices/"

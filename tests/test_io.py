@@ -28,30 +28,67 @@ def test_triplet_binary_flag(rng, tmp_path):
     assert ((dm.mat != 0) == (a != 0)).all()
 
 
-def test_reference_triplet_files_parse():
-    dm = read_triplet("/root/reference/int/30_0.10_0")
+def _erdos(seed, n=30, d=0.10, ints=True):
+    """A seeded matrix of the reference's Erdos suite family: n x n,
+    density d, integer (1..4) or double (0..1) entries."""
+    r = np.random.default_rng(seed)
+    mask = r.random((n, n)) < d
+    vals = r.integers(1, 5, (n, n)) if ints else r.random((n, n))
+    return mask * vals
+
+
+def _write_mtx(path, a, field="integer", symmetry="general"):
+    """MatrixMarket coordinate writer (1-based; lower triangle only for
+    symmetric files, values omitted for pattern files)."""
+    n = a.shape[0]
+    ij = [(i, j) for i, j in zip(*np.nonzero(a))
+          if symmetry == "general" or i >= j]
+    with open(path, "w") as f:
+        f.write(f"%%MatrixMarket matrix coordinate {field} {symmetry}\n")
+        f.write(f"{n} {n} {len(ij)}\n")
+        for i, j in ij:
+            v = "" if field == "pattern" else f" {a[i, j]}"
+            f.write(f"{i + 1} {j + 1}{v}\n")
+
+
+def test_reference_triplet_files_parse(tmp_path):
+    a = _erdos(0)
+    write_triplet(str(tmp_path / "int_30"), DenseMatrix(a, "int"))
+    dm = read_triplet(str(tmp_path / "int_30"))
     assert dm.nov == 30 and dm.type == "int" and dm.nnz > 0
-    dd = read_triplet("/root/reference/double/30_0.10_0")
+    assert (dm.mat == a).all()
+    d = _erdos(1, ints=False)
+    write_triplet(str(tmp_path / "double_30"), DenseMatrix(d, "double"))
+    dd = read_triplet(str(tmp_path / "double_30"))
     assert dd.type == "double"
+    assert np.allclose(dd.mat, d, rtol=1e-12)
 
 
-def test_reference_mtx_parse():
-    dm = read_matrix_market(
-        "/root/reference/revised_perman/erdos_int/30_0.10_0.mtx")
+def test_reference_mtx_parse(tmp_path):
+    a = _erdos(2)
+    _write_mtx(str(tmp_path / "erdos.mtx"), a)
+    dm = read_matrix_market(str(tmp_path / "erdos.mtx"))
     assert dm.nov == 30 and dm.type == "int"
-    # symmetric pattern file
-    sym = read_matrix_market(
-        "/root/reference/revised_perman/elektrik_matrices/known_perman/"
-        "chesapeake.mtx")
+    assert (dm.mat == a).all()
+    # symmetric pattern file: only the lower triangle is stored
+    g = _erdos(3, n=39, d=0.08)
+    g = ((g + g.T) != 0).astype(np.int64)
+    _write_mtx(str(tmp_path / "graph.mtx"), g, field="pattern",
+               symmetry="symmetric")
+    sym = read_matrix_market(str(tmp_path / "graph.mtx"))
     assert (sym.mat == sym.mat.T).all()
+    assert ((sym.mat != 0) == (g != 0)).all()
 
 
-def test_mtx_matches_v1_triplet():
-    """erdos_int/*.mtx are the MatrixMarket versions of int/* suites."""
-    a = read_triplet("/root/reference/int/30_0.20_0").mat
-    b = read_matrix_market(
-        "/root/reference/revised_perman/erdos_int/30_0.20_0.mtx").mat
-    assert (a == b).all()
+def test_mtx_matches_v1_triplet(tmp_path):
+    """The MatrixMarket and v1 triplet files of one suite matrix read
+    back identically."""
+    a = _erdos(4, d=0.20)
+    write_triplet(str(tmp_path / "30_0.20_0"), DenseMatrix(a, "int"))
+    _write_mtx(str(tmp_path / "30_0.20_0.mtx"), a)
+    x = read_triplet(str(tmp_path / "30_0.20_0")).mat
+    y = read_matrix_market(str(tmp_path / "30_0.20_0.mtx")).mat
+    assert (x == y).all()
 
 
 def test_ccs_crs_views(rng):

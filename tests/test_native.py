@@ -93,7 +93,7 @@ def test_native_quad_sparse_and_skipper(rng):
 
 
 def test_quad_agrees_with_tf96(rng):
-    """The two highest tiers (native __float128 and TPU tf96) agree to
+    """The two highest tiers (native __float128 and device tf96) agree to
     ~1e-14 — the round-1 verdict's done-criterion for parallel quad."""
     from superman_tpu.bindings.native import native_available
     if not native_available():

@@ -1,7 +1,7 @@
 """Known-answer regression tests on the reference's bundled matrices.
 
 Mechanism (SURVEY.md §4): cross-algorithm agreement is the primary oracle —
-the TPU engine, the host f64 walk, and the independent native C++ engine
+the device engine, the host f64 walk, and the independent native C++ engine
 all compute the same scalar.  Matrices are read straight from the
 read-only reference checkout; sizes are capped at n=24 so the Pallas
 interpret path stays fast on the CPU test backend.
@@ -37,9 +37,9 @@ needs_ref = pytest.mark.skipif(not os.path.isdir(MATS),
 @pytest.mark.parametrize("name", SMALL_REAL)
 def test_real_matrices_cross_engine(name):
     path = f"{MATS}/{name}"
-    tpu = sp.permanent(path, calc="df64")
+    dev = sp.permanent(path, calc="df64")
     host = sp.permanent(path, calc="f64")
-    assert tpu.permanent == pytest.approx(host.permanent, rel=1e-8), name
+    assert dev.permanent == pytest.approx(host.permanent, rel=1e-8), name
     if native_available():
         nat = sp.permanent(path, calc="f64", cpu=True, gpu=False)
         assert nat.permanent == pytest.approx(host.permanent, rel=1e-9)

@@ -1,4 +1,4 @@
-"""Hybrid dynamic chunk scheduler: TPU+CPU overlap, checkpoint/resume,
+"""Hybrid dynamic chunk scheduler: device+CPU overlap, checkpoint/resume,
 failure retry (reference multigpucpu_chunks parity, SURVEY.md §2.4.1)."""
 
 import json
@@ -25,7 +25,7 @@ def test_hybrid_matches_single(rng):
 
 @pytest.mark.skipif(not native_available(), reason="no native engine")
 def test_hybrid_with_cpu_helper(rng):
-    """Mixed TPU+CPU units: the workers use different arithmetic (df64
+    """Mixed device+CPU units: the workers use different arithmetic (df64
     pair vs double/long-double), so the invariant is reference-grade
     relative accuracy, not bitwise equality (that holds only when all
     units run on one engine kind)."""
@@ -35,13 +35,13 @@ def test_hybrid_with_cpu_helper(rng):
     ref = float(perman64(a))
     assert abs(hyb.permanent - ref) <= 1e-9 * abs(ref)
     h = hyb.meta["hybrid"]
-    assert h["tpu"] + h["cpu"] == h["units"]
+    assert h["device"] + h["cpu"] == h["units"]
     assert h["cpu"] >= 1    # the helper actually participated
 
 
 @pytest.mark.skipif(not native_available(), reason="no native engine")
 def test_native_chunks_matches_kernel_convention(rng):
-    """CPU chunk partials and the TPU kernel share the raw-sum convention:
+    """CPU chunk partials and the device kernel share the raw-sum convention:
     running ALL chunks through the native range engine and applying the
     same final sign factor reproduces the permanent."""
     from superman_tpu.bindings.native import perman_dense_chunks
@@ -159,7 +159,7 @@ def test_journal_key_pins_layout(rng, tmp_path):
 
 
 def test_failed_unit_handoff_to_cpu(rng, monkeypatch):
-    """A unit that persistently fails on the TPU worker is handed back to
+    """A unit that persistently fails on the device worker is handed back to
     the queue and completed by the CPU worker; the run still succeeds."""
     pytest.importorskip("ctypes")
     from superman_tpu.bindings.native import native_available
@@ -174,12 +174,12 @@ def test_failed_unit_handoff_to_cpu(rng, monkeypatch):
 
     def poisoned(blk, *args, **kw):
         # permanently fail exactly one unit (identified by its first
-        # chunk id) on the TPU side
+        # chunk id) on the device side
         first = int(np.asarray(blk).ravel()[0])
         if state["first_start"] is None:
             state["first_start"] = first
         if first == state["first_start"]:
-            raise RuntimeError("injected persistent TPU fault")
+            raise RuntimeError("injected persistent device fault")
         return real_cp(blk, *args, **kw)
 
     monkeypatch.setattr("superman_tpu.parallel.sharding.compute_partials",
